@@ -1,6 +1,6 @@
 """Post-fit analysis of the Heavy-metals workload.
 
-Mirrors the analysis outputs of /root/reference/Heavy_metals/Results_analysis.R:
+Mirrors the analysis outputs of the reference's Heavy_metals/Results_analysis.R:
 - Gelman-Rubin-Brooks R-hat trajectories vs iteration (:17-60)
 - covariance estimates with ranges scaled by the Earth radius (:133-142)
 - a gridded US prediction map of the latent field (:150-197; matplotlib

@@ -1,6 +1,6 @@
 """Vignette walkthrough: the reference's executable-doc toy example.
 
-Mirrors /root/reference/Vignette.rmd:24-235 — a 1-D Gaussian process with
+Mirrors the reference's Vignette.rmd:24-235 — a 1-D Gaussian process with
 known truth (scale 10, range 5, noise variance 5), duplicated observation
 sites, a spatially-coherent regressor (the coordinate itself) plus a white
 noise regressor, the multi-stage run protocol with Gelman-Rubin-Brooks

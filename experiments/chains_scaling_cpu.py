@@ -4,7 +4,7 @@
 Measures the same quantity the north star asks for at 2+ hosts (≥80 %
 chain-throughput scaling efficiency), on the only multi-"host" fabric this
 box offers: 2 OS processes × 1 CPU device joined via jax.distributed/gloo
-(the code path a real 2-host TPU run takes), vs a single process doing all
+(the code path a real 2-host run takes), vs a single process doing all
 the work.  Each process runs its chain shard through the shard_map'd cycle;
 no cross-process traffic during the cycle (exactly like production — only
 the GRB moments cross hosts, once per cycle).

@@ -31,11 +31,12 @@ parameter name.
 """
 
 import json
+import os
 import sys
 
 import numpy as np
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from nngp_tpu.diagnostics.grb import Gelman_Rubin_Brooks
 

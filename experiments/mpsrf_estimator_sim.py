@@ -15,7 +15,7 @@ distribution at the HM budget (n=2000 kept after burn-in) for m = 3 and
 m = 96 chains.
 
 This is the quantitative basis for running the reference's own 20x200
-per-chain protocol at 96 chains on the TPU: the per-chain budget is
+per-chain protocol at 96 chains on one device: the per-chain budget is
 unchanged; only the criterion's estimator noise shrinks.
 """
 

@@ -14,8 +14,8 @@ float64 NumPy oracle (same math, f64 coords, f64 factor build, f64 solve):
   - decomposition: reduction-only error (f64 summation of the f32-computed
     residuals) vs upstream error (f32 factor build / level solve / coords)
 
-Run (CPU):  PYTHONPATH= JAX_PLATFORMS=cpu python experiments/ratio_audit.py
-Run (TPU):  python experiments/ratio_audit.py --tpu
+Run (CPU):          python experiments/ratio_audit.py
+Run (accelerator):  python experiments/ratio_audit.py --device
 """
 
 import argparse
@@ -31,12 +31,13 @@ import numpy as np
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--tpu", action="store_true")
+    ap.add_argument("--device", action="store_true",
+                    help="run on JAX's default backend instead of the CPU")
     ap.add_argument("--n-proposals", type=int, default=40)
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
 
-    if not args.tpu:
+    if not args.device:
         os.environ.setdefault("JAX_PLATFORMS", "cpu")
 
     import jax

@@ -19,12 +19,13 @@ semantics mcmc_nngp_diagnose.R:12-23.
 """
 
 import json
+import os
 import pickle
 import sys
 
 import numpy as np
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 PKL = "experiments/hm_fit_r4.pkl"
 OUT = "experiments/slow_direction_diag.json"

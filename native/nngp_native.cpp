@@ -1,6 +1,6 @@
 // Native preprocessing kernels for nngp_tpu.
 //
-// TPU-native equivalents of the reference's C++ dependency layer
+// Host-side equivalents of the reference's C++ dependency layer
 // (SURVEY.md §2b N1/N2: GpGp::order_maxmin / find_ordered_nn and the R
 // greedy coloring loop, Scripts/Coloring.R:2-20).  These run once per
 // problem on the host; the O(n^2) exact farthest-point ordering and the

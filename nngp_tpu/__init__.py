@@ -1,7 +1,7 @@
-"""nngp_tpu — TPU-native MCMC engine for Nearest-Neighbor Gaussian Process models
+"""nngp_tpu — a JAX MCMC engine for Nearest-Neighbor Gaussian Process models
 with full data augmentation.
 
-A from-scratch JAX/XLA/Pallas re-design of the algorithms in the reference R
+A from-scratch JAX/XLA re-design of the algorithms in the reference R
 implementation (Coube & Liquet, arXiv 2010.00896; supplementary repo
 ``Improving-performances-of-MCMC-for-Nearest-Neighbor-Gaussian-Process-models-
 with-full-data-augmentat``):

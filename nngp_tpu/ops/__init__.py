@@ -1,6 +1,6 @@
-"""Device-side compute kernels (JAX/XLA, Pallas fast paths).
+"""Device-side compute kernels (JAX/XLA).
 
-TPU-native equivalents of the reference's native (C++/C/LAPACK) numerics —
+Device-side equivalents of the reference's native (C++/C/LAPACK) numerics —
 see SURVEY.md §2b: GpGp::vecchia_Linv / Linv_mult, Matrix sparse ops,
 Bessel-K for the Matérn family, and the level-scheduled triangular solve
 replacing sequential sparse back-substitution.

@@ -2,8 +2,8 @@
 
 Needed by the Matérn covariance families with continuously varying
 smoothness (reference: GpGp's C++ matern_* covariance functions, registry at
-mcmc_nngp_initialize.R:62-69).  Neither jax.scipy nor TPU-friendly libraries
-ship K_nu, so it is implemented here from the classical algorithms:
+mcmc_nngp_initialize.R:62-69).  jax.scipy does not ship K_nu, so it is
+implemented here from the classical algorithms:
 
 - x <= 2 : Temme's series (Temme 1975, J.Comp.Phys 19), with the auxiliary
   Gamma-ratio functions evaluated by Chebyshev expansion.

@@ -1,6 +1,6 @@
 """Stationary covariance families + shape-parameter transform registry.
 
-TPU-native equivalents of GpGp's C++ covariance functions (reference
+JAX equivalents of GpGp's C++ covariance functions (reference
 registry: mcmc_nngp_initialize.R:62-69; kernels invoked through
 GpGp::vecchia_Linv with covparms = c(variance=1, shape..., nugget=0),
 mcmc_nngp_update_Gaussian.R:72).  All families return *correlation*
@@ -161,14 +161,13 @@ def correlation_from_sqdist(covfun: str, d2g: jax.Array,
     return exp_neg(d)
 
 
-# ~1-ulp f32 exp(-t): the TPU's builtin exp carries ~2e-6 relative error,
-# which the Vecchia conditional-variance cancellation amplifies by 1/d_i
-# (1e2-1e5x at Heavy-metals geometry) straight into the sufficient MH
-# log-ratio — experiments/factor_probe_tpu.json measured the resulting
-# log-det error at -6.05 (sum) / -0.33 per proposal.  Cody-Waite argument
-# reduction + an (e^r - 1) polynomial keeps every rounding term small
-# relative to the result, so the factor build is limited only by f32
-# storage of K.
+# ~1-ulp f32 exp(-t): a builtin exp that is a few ulps off (backends
+# differ) has its error amplified by the Vecchia conditional-variance
+# cancellation by 1/d_i (1e2-1e5x at Heavy-metals geometry), straight into
+# the sufficient MH log-ratio.  Cody-Waite argument reduction + an
+# (e^r - 1) polynomial keeps every rounding term small relative to the
+# result, so the factor build is limited only by f32 storage of K, the
+# same on every backend.
 _LOG2E = 1.4426950408889634
 _LN2_HI = 0.693145751953125       # ln2 rounded to 2^-21: k*_LN2_HI exact
 _LN2_LO = 1.42860676533018e-06    # ln2 - _LN2_HI
@@ -209,10 +208,10 @@ _LOG1P_C = (-1.0 / 10, 1.0 / 9, -1.0 / 8, 1.0 / 7, -1.0 / 6, 1.0 / 5,
 
 def log1p_acc(u: jax.Array) -> jax.Array:
     """Accurate log(1+u) for |u| <~ 0.25 (falls back to the builtin
-    outside, where the TPU builtin's ~1e-5 absolute bias is negligible
-    against the O(1)+ result).  The MH log-det ratio sums ~n of these, so
-    the builtin's systematic bias would otherwise accumulate to O(0.3) at
-    n=58k (experiments/op_probe_tpu.json)."""
+    outside, where a builtin's few-ulp error is negligible against the
+    O(1)+ result).  The MH log-det ratio sums ~n of these, so any
+    systematic bias of a builtin near 0 would accumulate n-fold (n=58k at
+    Heavy-metals scale)."""
     u2 = u * u
     p = jnp.asarray(_LOG1P_C[0], dtype=u.dtype)
     for c in _LOG1P_C[1:]:

@@ -91,6 +91,33 @@ def np_sparse_L(linv, NN):
     )
 
 
+def np_mean_field_sweep(linv, NN, blocks, field, beta_0, log_scale,
+                        log_noise_variance, rsum, obs_per_loc):
+    """One zero-noise chromatic sweep in float64: the deterministic
+    mean-field map of mcmc_nngp_update_Gaussian.R:254-275.
+
+    ``blocks`` is the walk order, a sequence of site-index arrays (entries
+    >= n are padding).  Each block's sites take, at once, the conditional
+    mean beta_0 - (e^{-ls} sum_{j~s} Q_sj (w_j - beta_0) - e^{-lnv} rsum_s)
+    / P_s with P_s = e^{-ls} Q_ss + e^{-lnv} obs_per_loc_s and Q = L'L."""
+    n = NN.shape[0]
+    L = np_sparse_L(np.asarray(linv, dtype=np.float64), NN)
+    Q = (L.T @ L).tocsr()
+    qdiag = Q.diagonal()
+    Qoff = (Q - sparse.diags(qdiag)).tocsr()
+    inv_scale = np.exp(-float(log_scale))
+    inv_noise = np.exp(-float(log_noise_variance))
+    P = inv_scale * qdiag + inv_noise * np.asarray(obs_per_loc, np.float64)
+    rsum = np.asarray(rsum, dtype=np.float64)
+    w = np.array(field, dtype=np.float64)
+    for blk in blocks:
+        s = np.asarray(blk)
+        s = s[s < n]
+        prior = Qoff[s] @ (w - beta_0)
+        w[s] = beta_0 - (inv_scale * prior - inv_noise * rsum[s]) / P[s]
+    return w
+
+
 def np_solve_L(linv, NN, v, levels=None):
     """x = L^-1 v by the same level-scheduled substitution as the device
     kernel (ops/trisolve.py) — vectorized NumPy per DAG level.  (SuperLU on

@@ -7,7 +7,8 @@ ancillary / sufficient MH blocks (the round-2 divergence,
 experiments/ratio_audit_*.json).  The reference computes these in float64
 (R doubles, mcmc_nngp_update_Gaussian.R:8-12,129-133,184-186).
 
-TPU has no native f64, so we get f64-quality sums in pure f32 VPU ops:
+The sampler's state is float32, so these give f64-quality sums from f32
+ops alone:
 
 - ``two_sum``: Knuth's error-free transformation of a + b.
 - ``pairwise_df_sum``: pairwise reduction tree that carries a (hi, lo)
@@ -18,7 +19,7 @@ TPU has no native f64, so we get f64-quality sums in pure f32 VPU ops:
   total-sized and the residual per-term rounding (eps * sum|term|) is
   small too.
 
-Cost: ~2n extra VPU flops per reduction — invisible next to the factor
+Cost: ~2n extra elementwise flops per reduction — invisible next to the factor
 builds.  Everything is shape-static and jit/vmap-friendly.
 """
 

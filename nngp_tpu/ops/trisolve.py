@@ -1,11 +1,11 @@
 """Level-scheduled sparse triangular solve over the Vecchia DAG.
 
-TPU-native replacement for the sequential sparse back-substitution
+Batched replacement for the sequential sparse back-substitution
 Matrix::solve(L, v) used by the reference for prior field simulation
 (mcmc_nngp_initialize.R:208), the ancillary field co-transform
 (mcmc_nngp_update_Gaussian.R:127) and prediction (mcmc_nngp_predict.R:46).
 
-A sequential solve is TPU-hostile; instead, sites are grouped by their
+A sequential solve leaves a wide device idle; instead, sites are grouped by their
 topological depth in the DAG (preprocess.coloring.dag_levels).  Within a
 level no site depends on another, so the whole level solves in one batched
 gather + divide; a `lax.fori_loop` walks the levels.  Exact (not iterative):
@@ -27,12 +27,10 @@ def level_solve(linv: jax.Array, v: jax.Array, graph) -> jax.Array:
 
     Fast path (graphs carrying ``level_segs``): a handful of
     ``fori_loop``s over tight segment-classed tables (~1.2-1.3x n gathered
-    rows; preprocess.coloring.level_segments — a fully unrolled
-    one-slice-per-level variant was tighter still but faulted the TPU
-    worker when composed into the full Gibbs program, see that docstring).
+    rows; preprocess.coloring.level_segments, whose docstring says why not
+    one slice per level).
     Fallback: ``lax.fori_loop`` over the fixed-width ``levels_idx`` blocks
-    (3-4x n padded rows at Heavy-metals scale — the top measured Gibbs
-    block in experiments/block_profile_r3.log before the tight schedule).
+    (3-4x n padded rows at Heavy-metals scale).
     Set ``NNGP_LEVEL_SEGS=0`` to force the fallback without a rebuild.
     """
     n = graph.n

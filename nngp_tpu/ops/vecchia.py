@@ -1,6 +1,6 @@
 """Batched Vecchia sparse inverse-Cholesky kernels.
 
-The #1 hot path of the sampler (SURVEY.md §2b N3/N4/N7).  TPU-native
+The #1 hot path of the sampler (SURVEY.md §2b N3/N4/N7).  Batched
 re-design of GpGp::vecchia_Linv / GpGp::Linv_mult / Matrix::crossprod
 (reference call sites: mcmc_nngp_initialize.R:201,
 mcmc_nngp_update_Gaussian.R:8-12,72-74,123,179, mcmc_nngp_predict.R:39):
@@ -10,7 +10,8 @@ mcmc_nngp_update_Gaussian.R:8-12,72-74,123,179, mcmc_nngp_predict.R:39):
   and produce row i of the compressed factor L — all as one fused, fully
   vectorized computation over the padded [n, m+1] neighbor array.  The tiny
   per-row Cholesky/solves are *unrolled* over the static neighbor count so
-  the whole kernel is straight-line VPU code (no batched-LAPACK loops).
+  the whole kernel is straight-line elementwise code (no batched-LAPACK
+  loops).
 - ``linv_mult`` / ``linv_t_mult``: gather/scatter mat-vecs with L and L'.
 - ``precision_diag_and_q_edges``: the nonzeros of Q = L'L (diagonal +
   moralized-edge values) by one scatter-add over precomputed edge-id maps —
@@ -147,9 +148,10 @@ def linv_mult(linv: jax.Array, x: jax.Array, graph) -> jax.Array:
         vals = x[safe_NN] * graph.nn_mask            # [n, k]
         return jnp.sum(linv * vals, axis=1)
     vals = x[safe_NN] * graph.nn_mask[..., None]      # [n, k, c]
-    # HIGHEST: keep the contraction in true f32 (the TPU default would
-    # round the operands to bf16 on the MXU; this feeds the beta
-    # interweaving precision matrix, mcmc_nngp_update_Gaussian.R:79)
+    # HIGHEST: keep the contraction in true f32 (at the default precision
+    # a float32 contraction may round its operands, to TF32 on tensor
+    # cores; this feeds the beta interweaving precision matrix,
+    # mcmc_nngp_update_Gaussian.R:79)
     return jnp.einsum("nk,nkc->nc", linv, vals,
                       precision=jax.lax.Precision.HIGHEST)
 
@@ -217,9 +219,8 @@ def nngp_loglik_diff(linv_new, log_scale_new, linv_old, log_scale_old,
     c_new = exp_acc(-log_scale_new)
     c_old = exp_acc(-log_scale_old)
     # log(a/b) for a ~ b via log1p((a-b)/b): the subtraction is exact
-    # (Sterbenz) and log1p_acc is ~1-ulp near 0 (the TPU builtins carry a
-    # ~1e-5 systematic bias that sums to O(0.3) over 58k terms —
-    # experiments/op_probe_tpu.json)
+    # (Sterbenz) and log1p_acc is ~1-ulp near 0, so no builtin's
+    # systematic bias can accumulate over the n terms
     a, b = linv_new[:, 0], linv_old[:, 0]
     terms = (
         log1p_acc((a - b) / b)

@@ -4,7 +4,7 @@ The reference's only parallelism is fork-per-chain mclapply
 (mcmc_nngp_update_Gaussian.R:25, joined at mcmc_nngp_run.R:22-33).  Here
 chains are a vmapped batch axis sharded over a ``jax.sharding.Mesh`` with
 ``jax.shard_map``; cross-chain reductions (Gelman-Rubin-Brooks moments,
-pooled acceptance statistics) ride XLA collectives over ICI/DCN.
+pooled acceptance statistics) ride XLA collectives.
 """
 
 from nngp_tpu.parallel.chains import chains_mesh, make_sharded_cycle_fn

@@ -26,7 +26,7 @@ def chains_mesh(devices=None) -> Mesh:
     return Mesh(np.asarray(devices), (CHAINS_AXIS,))
 
 
-def make_sharded_cycle_fn(graph, data, cfg, mesh: Mesh, plan=None):
+def make_sharded_cycle_fn(graph, data, cfg, mesh: Mesh):
     """Jitted cycle update with chains sharded over ``mesh``.
 
     states/keys carry a leading chains axis divisible by the mesh size;
@@ -36,24 +36,24 @@ def make_sharded_cycle_fn(graph, data, cfg, mesh: Mesh, plan=None):
 
     import jax.numpy as jnp
 
-    def local_cycle(graph_, data_, plan_, states, keys, iter_start, slots):
+    def local_cycle(graph_, data_, states, keys, iter_start, slots):
         return jax.vmap(
             lambda s, k: run_cycle(graph_, data_, cfg, s, k, iter_start,
-                                   plan=plan_, saved_slots=slots)
+                                   saved_slots=slots)
         )(states, keys)
 
     sharded = jax.shard_map(
         local_cycle,
         mesh=mesh,
-        in_specs=(P(), P(), P(), P(CHAINS_AXIS), P(CHAINS_AXIS), P(), P()),
+        in_specs=(P(), P(), P(CHAINS_AXIS), P(CHAINS_AXIS), P(), P()),
         out_specs=(P(CHAINS_AXIS), P(CHAINS_AXIS)),
     )
-    jitted = jax.jit(sharded, donate_argnums=(3,))
+    jitted = jax.jit(sharded, donate_argnums=(2,))
 
     def call(states, keys, iter_start, saved_slots=None):
         if saved_slots is None:
             saved_slots = jnp.arange(cfg.n_iterations, dtype=jnp.int32)
-        return jitted(graph, data, plan, states, keys, iter_start,
+        return jitted(graph, data, states, keys, iter_start,
                       jnp.asarray(saved_slots, dtype=jnp.int32))
 
     return call
@@ -61,7 +61,6 @@ def make_sharded_cycle_fn(graph, data, cfg, mesh: Mesh, plan=None):
 
 def shard_states(states, mesh: Mesh):
     """Place a stacked chain-state pytree on the mesh's chains axis."""
-    sharding = NamedSharding(mesh, P(CHAINS_AXIS))
     return jax.tree.map(
         lambda x: jax.device_put(
             x, NamedSharding(mesh, P(*([CHAINS_AXIS] + [None] * (x.ndim - 1))))

@@ -3,8 +3,8 @@
 The stopping decision needs cross-chain within/between covariances
 (mcmc_nngp_diagnose.R:12-21).  When chains are sharded over devices/hosts,
 the moments are reduced with `lax.pmean` over the chains mesh axis so that
-records never leave their device — only the p x p moment matrices move over
-ICI/DCN (SURVEY.md §5 'Distributed communication backend').
+records never leave their device — only the p x p moment matrices move
+between devices (SURVEY.md §5 'Distributed communication backend').
 """
 
 from __future__ import annotations
@@ -36,14 +36,16 @@ def collective_grb(samples: jax.Array, n_chains_total: int, axis=CHAINS_AXIS):
     m = n_chains_total
     means = jnp.mean(samples, axis=1)                      # [lc, p]
     centered = samples - means[:, None, :]
-    covs = jnp.einsum("ctp,ctq->cpq", centered, centered) / (T - 1)
+    covs = jnp.einsum("ctp,ctq->cpq", centered, centered,
+                      precision=lax.Precision.HIGHEST) / (T - 1)
     # within = average of per-chain covariances (diagnose.R:13-14)
     W = lax.pmean(jnp.mean(covs, axis=0), axis)
     # between = covariance of the chain means (diagnose.R:15-16):
     # psum of deviation outer products over all chains / (m - 1)
     mean_of_means = lax.pmean(jnp.mean(means, axis=0), axis)
     dev = means - mean_of_means
-    B = lax.psum(jnp.einsum("cp,cq->pq", dev, dev), axis) / (m - 1)
+    B = lax.psum(jnp.einsum("cp,cq->pq", dev, dev,
+                            precision=lax.Precision.HIGHEST), axis) / (m - 1)
     return _grb_from_moments(W, B, T, m)
 
 

@@ -2,18 +2,16 @@
 
 The reference's only parallelism is fork-per-chain on one node
 (mcmc_nngp_update_Gaussian.R:25, joined per cycle at mcmc_nngp_run.R:22-33).
-The TPU-native mapping (SURVEY.md §2c) shards chains over every device of a
-multi-host slice: each process runs its local chains inside one shard_map'd
-cycle program, records stay host-local, and only the p x p Gelman-Rubin
-moment matrices cross hosts (parallel/collectives.py), riding ICI within a
-slice and DCN across slices.
+Here chains are sharded over every device of every process (SURVEY.md §2c):
+each process runs its local chains inside one shard_map'd cycle program,
+records stay host-local, and only the p x p Gelman-Rubin moment matrices
+cross devices (parallel/collectives.py).
 
-Bring-up is env-driven so the same script works under any launcher:
+Bring-up is explicit, so the same script works under any launcher:
 
     NNGP_COORDINATOR=host0:port  NNGP_NUM_PROCESSES=k  NNGP_PROCESS_ID=i
 
-(or the standard JAX service env vars that `jax.distributed.initialize`
-auto-detects on TPU pods, where all three arguments may be omitted).
+(``JAX_COORDINATOR_ADDRESS`` is accepted in place of NNGP_COORDINATOR).
 On CPU the cross-process collectives use the gloo backend — the same code
 path exercised by tests/test_distributed.py with 2 local processes.
 """
@@ -47,14 +45,6 @@ def initialize_distributed(
     if process_id is None and os.environ.get("NNGP_PROCESS_ID"):
         process_id = int(os.environ["NNGP_PROCESS_ID"])
     if coordinator_address is None and num_processes is None:
-        # On TPU pod slices jax.distributed.initialize() can auto-detect
-        # everything from the environment; only attempt it when the
-        # environment looks like a pod (megascale/TPU env present).
-        if os.environ.get("TPU_WORKER_HOSTNAMES") or os.environ.get(
-            "MEGASCALE_COORDINATOR_ADDRESS"
-        ):
-            jax.distributed.initialize()
-            return True
         return False
     jax.distributed.initialize(
         coordinator_address=coordinator_address,

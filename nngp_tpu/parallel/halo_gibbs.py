@@ -327,10 +327,10 @@ def _halo_beta(graph, data, cfg, plan, state, linv, key, d, axis):
             ),
             axis,
         )
-        bmean = rX1 @ data.solve_1XT1X
+        bmean = jnp.matmul(rX1, data.solve_1XT1X, precision=_HIGHEST)
         z = jax.random.normal(k2, (p + 1,), dtype=dtype)
-        innov = bmean + jnp.exp(0.5 * state.log_noise_variance) * (
-            data.chol_solve_1XT1X_lower @ z
+        innov = bmean + jnp.exp(0.5 * state.log_noise_variance) * jnp.matmul(
+            data.chol_solve_1XT1X_lower, z, precision=_HIGHEST
         )
         field = field - beta_0 + innov[0]
         beta_0 = innov[0]
@@ -343,7 +343,8 @@ def _halo_beta(graph, data, cfg, plan, state, linv, key, d, axis):
             LX = rows_linv_mult(linv, X1l, graph, owned) * real[:, None]
             P_iw = lax.psum(jnp.matmul(LX.T, LX, precision=_HIGHEST), axis)
             cL = jnp.linalg.cholesky(P_iw)
-            other = field + data.X_locs_u @ beta[lc]
+            other = field + jnp.matmul(data.X_locs_u, beta[lc],
+                                       precision=_HIGHEST)
             Lo = rows_linv_mult(linv, other, graph, owned) * real
             t = lax.psum(jnp.matmul(LX.T, Lo, precision=_HIGHEST), axis)
             mean = jax.scipy.linalg.cho_solve((cL, True), t)
@@ -353,7 +354,8 @@ def _halo_beta(graph, data, cfg, plan, state, linv, key, d, axis):
             )
             beta_0 = innov[0]
             beta = beta.at[lc].set(innov[1:])
-            field = other - data.X_locs_u @ innov[1:]
+            field = other - jnp.matmul(data.X_locs_u, innov[1:],
+                                       precision=_HIGHEST)
 
     return replace(state, beta_0=beta_0, beta=beta, field=field)
 

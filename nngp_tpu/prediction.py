@@ -6,7 +6,7 @@ Parity with mcmc_nngp_predict (Scripts/mcmc_nngp_predict.R):
   [training locs; predicted locs] (ref :4-8), then per retained posterior
   sample a conditional simulation
       w_pred = sd * solve(L_joint, [L_obs (w - beta_0)/sd ; z])[n:]
-  (ref :44-53).  TPU design: instead of the reference's
+  (ref :44-53).  Design: instead of the reference's
   recompute-only-when-shape-changed loop over samples (ref :23,32-41), the
   Vecchia factor build and the level-scheduled triangular solve are vmapped
   over chunks of posterior samples — recomputation is cheaper than

@@ -1,7 +1,7 @@
 """Host-side preprocessing (NumPy): runs once per problem.
 
 Produces only static, fixed-shape integer/float arrays so that every
-downstream computation is shape-stable and jittable on TPU.
+downstream computation is shape-stable and jittable.
 """
 
 from nngp_tpu.preprocess.ordering import reorder_locations

@@ -3,7 +3,7 @@
 Reference parity:
 - MRF adjacency by moralization  crossprod(L)       (mcmc_nngp_initialize.R:103)
 - naive greedy coloring                              (Scripts/Coloring.R:2-20)
-- (new, TPU-specific) DAG level schedule for the sparse triangular solve that
+- (new) DAG level schedule for the batched sparse triangular solve that
   replaces Matrix::solve(L, v) (mcmc_nngp_initialize.R:208,
   mcmc_nngp_update_Gaussian.R:127, mcmc_nngp_predict.R:46).
 
@@ -281,11 +281,10 @@ def level_segments(levels: np.ndarray, n_sentinel=None, small: int = 128,
 
     Why not one exact-width slice per level: a fully unrolled schedule
     (one mixed-width gather/scatter pair per level, 83 levels at
-    Heavy-metals scale) measured ~1.05x n rows and 5.3 ms in isolation but
-    **faulted the TPU worker when composed into the full Gibbs program**
-    (both the production cycle and the profile harness crashed the remote
-    worker; the blocked fallback and this segment-classed layout compose
-    fine).  Segment count here is data-dependent but small (3 at
+    Heavy-metals scale) gathers only ~1.05x n rows, but it puts one
+    distinct gather/scatter pair per level into the program, and composed
+    into the full Gibbs program it crashed the device it was first built
+    for.  Segment count here is data-dependent but small (3 at
     Heavy-metals scale: the level-width profile is unimodal).
     """
     levels = np.asarray(levels)

@@ -1,6 +1,6 @@
 """VecchiaGraph: the static device-side problem structure.
 
-Bundles every fixed-shape array the TPU kernels need — the padded neighbor
+Bundles every fixed-shape array the device kernels need — the padded neighbor
 array, the moralized-graph scatter maps, per-color and per-level padded site
 lists, and the observation<->location maps.  Built once on the host
 (reference: L1 preprocessing, mcmc_nngp_initialize.R:21-110) and passed to
@@ -200,7 +200,7 @@ def build_graph(
     """Assemble the VecchiaGraph from deduped/reordered locations.
 
     Returns (graph, NNarray_numpy).  Covers reference steps
-    mcmc_nngp_initialize.R:93-110 plus the TPU-specific level schedule.
+    mcmc_nngp_initialize.R:93-110 plus the triangular solve's level schedule.
     Pass a precomputed ``NN`` (e.g. from a saved fit) to skip the neighbor
     search and rebuild the exact saved DAG deterministically.
     """
@@ -230,8 +230,7 @@ def build_graph(
     )
     coords = lonlat_to_xyz(locs) if lonlat else locs
     # leaves stay NumPy on the host; the API layer device_puts the whole
-    # pytree in one batched transfer before the first jitted cycle (a remote
-    # TPU pays a round-trip per individual transfer)
+    # pytree in one batched transfer before the first jitted cycle
     g = VecchiaGraph(
         kernel_coords=np.asarray(coords, dtype=dtype),
         nn_dist2=nn_group_sqdist(coords, NN, covfun, dtype=dtype),

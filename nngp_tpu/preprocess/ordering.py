@@ -1,7 +1,7 @@
 """Location reorderings for the Vecchia approximation.
 
 Reference parity: the five reorderings dispatched at
-/root/reference/Scripts/mcmc_nngp_initialize.R:29-33 via GpGp's C++ helpers
+the reference's Scripts/mcmc_nngp_initialize.R:29-33 via GpGp's C++ helpers
 (order_maxmin, order_coordinate, order_dist_to_point, order_middleout, or a
 random permutation).  These run once on the host, so they are implemented in
 chunked NumPy (with an optional C++ fast path for maxmin, see native/).

@@ -1,25 +1,35 @@
 """Workload loaders.
 
 - ``load_heavy_metals``: the reference's real-data workload — US heavy-metal
-  (lead) measurements at 64,274 lon/lat sites with 14 covariates
-  (/root/reference/Heavy_metals/processed_data.RDS, consumed by
-  Heavy_metals/run_script.R:8-15).  Parsed directly from the RDS binary via
-  nngp_tpu.utils.rds; falls back to a synthetic clone of the same shape if
-  the file is unavailable.
+  (lead) measurements at 64,274 lon/lat sites with 14 covariates (the
+  reference's Heavy_metals/processed_data.RDS, consumed by
+  Heavy_metals/run_script.R:8-15), read from ``DEFAULT_RDS`` inside the
+  repository.  Parsed directly from the RDS binary via nngp_tpu.utils.rds.
+  While that file is absent the loader warns and returns a synthetic clone
+  of the same shape; ``heavy_metals_source`` says which one a run gets.
 """
 
 from __future__ import annotations
 
 import os
+import warnings
 
 import numpy as np
 
-DEFAULT_RDS = "/root/reference/Heavy_metals/processed_data.RDS"
+DEFAULT_RDS = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
+    "data", "heavy_metals", "processed_data.RDS",
+)
+
+
+def heavy_metals_source(path: str = DEFAULT_RDS) -> str:
+    """"rds" when the real data file is present, else "synthetic"."""
+    return "rds" if os.path.exists(path) else "synthetic"
 
 
 def load_heavy_metals(path: str = DEFAULT_RDS, allow_synthetic: bool = True):
     """Returns (observed_locs [n,2] lon/lat, observed_field [n], X_locs dict)."""
-    if os.path.exists(path):
+    if heavy_metals_source(path) == "rds":
         from nngp_tpu.utils.rds import read_rds
 
         d = read_rds(path)
@@ -35,6 +45,8 @@ def load_heavy_metals(path: str = DEFAULT_RDS, allow_synthetic: bool = True):
         return np.asarray(locs, dtype=np.float64), y, X
     if not allow_synthetic:
         raise FileNotFoundError(path)
+    warnings.warn(f"{path} not found: using the same-shape synthetic "
+                  "Heavy-metals data", stacklevel=2)
     return synthetic_heavy_metals()
 
 

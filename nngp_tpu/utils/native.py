@@ -1,7 +1,9 @@
 """ctypes loader for the native preprocessing library (native/).
 
-Builds native/libnngp_native.so on first use if a toolchain is available;
-falls back silently to the NumPy implementations otherwise.  The native
+Builds native/libnngp_native.so from native/nngp_native.cpp on first use
+(``make``, else the C++ compiler directly, with OpenMP when it is
+available); falls back to the NumPy implementations when no toolchain
+builds it.  The native
 fast paths cover the O(n^2) exact maxmin ordering and the sequential greedy
 coloring (reference equivalents: GpGp::order_maxmin C++ and the R loop in
 Scripts/Coloring.R).
@@ -11,6 +13,7 @@ from __future__ import annotations
 
 import ctypes
 import os
+import shutil
 import subprocess
 
 import numpy as np
@@ -28,19 +31,7 @@ def _load():
     if _tried:
         return _lib
     _tried = True
-    if not os.path.exists(_LIB_PATH) and os.path.exists(
-        os.path.join(_NATIVE_DIR, "Makefile")
-    ):
-        try:
-            subprocess.run(
-                ["make", "-C", _NATIVE_DIR, "-s"],
-                check=True,
-                capture_output=True,
-                timeout=120,
-            )
-        except Exception:
-            return None
-    if not os.path.exists(_LIB_PATH):
+    if not os.path.exists(_LIB_PATH) and not _build():
         return None
     try:
         lib = ctypes.CDLL(_LIB_PATH)
@@ -62,6 +53,25 @@ def _load():
     except OSError:
         _lib = None
     return _lib
+
+
+def _build() -> bool:
+    """Compile the library; True when it now exists."""
+    cxx = os.environ.get("CXX") or shutil.which("g++") or shutil.which("c++")
+    src = os.path.join(_NATIVE_DIR, "nngp_native.cpp")
+    cmds = [["make", "-C", _NATIVE_DIR, "-s"]] if shutil.which("make") else []
+    if cxx:
+        base = [cxx, "-O3", "-fPIC", "-shared", "-std=c++17"]
+        cmds += [base + ["-fopenmp", "-o", _LIB_PATH, src],
+                 base + ["-o", _LIB_PATH, src]]
+    for cmd in cmds:
+        try:
+            subprocess.run(cmd, check=True, capture_output=True, timeout=120)
+        except (OSError, subprocess.SubprocessError):
+            continue
+        if os.path.exists(_LIB_PATH):
+            return True
+    return False
 
 
 def maxmin_order_native(x: np.ndarray):

@@ -1,7 +1,7 @@
 """Minimal reader for R's RDS serialization format (version 2/3, XDR).
 
 Lets the engine consume the reference's shipped dataset
-(/root/reference/Heavy_metals/processed_data.RDS — loaded by
+(the reference's Heavy_metals/processed_data.RDS — loaded by
 Heavy_metals/run_script.R:9-11 via readRDS) without an R installation.
 
 Supports the subset of R's serialization needed for typical data payloads:

@@ -180,6 +180,15 @@ def test_flat_chromatic_schedule_runs(rng):
     assert np.isfinite(mc.records[0]["field"]).all()
 
 
+@pytest.mark.parametrize("schedule", ["pallas", "mxu"])
+def test_removed_chromatic_schedules_raise(rng, schedule):
+    locs, y, _, _ = simulate_toy(rng, n=60)
+    mc = nngp_tpu.initialize(locs, y, m=4, n_chains=2, seed=22)
+    with pytest.raises(ValueError, match="removed"):
+        nngp_tpu.run(mc, n_cycles=1, n_iterations_update=5, verbose=False,
+                     chromatic_schedule=schedule)
+
+
 def test_max_device_iters_splitting(rng):
     """Cycles split into bounded device calls must leave records and
     thinning bookkeeping identical in shape and continuous in content."""

@@ -123,6 +123,41 @@ def test_chromatic_targets_exact_conditional(rng):
     assert abs(emp_c - ref_c) < 0.15
 
 
+@pytest.mark.parametrize("schedule", ["classed", "flat"])
+def test_zero_noise_sweep_matches_f64_mean_field(rng, schedule):
+    """A zero-noise sweep is the deterministic mean-field map; it must
+    match the float64 NumPy map walking the same block order (flat: the
+    chrom_blocks rows; classed: each degree class's chrom_sites rows in
+    turn)."""
+    from nngp_tpu.ops.numpy_ref import np_mean_field_sweep
+
+    g, NN, data, maps = build_problem(rng, n_unique=300, n_obs=420, p=2)
+    cfg = UpdateConfig(
+        n_iterations=1, shape_names=("log_range",), locs_cols=(),
+        n_chromatic=1, chromatic_schedule=schedule, zero_sweep_noise=True,
+    )
+    state = make_state(g, 2, rng)
+    linv = vecchia_linv(g, jnp.exp(state.shape))
+    mu = _mu_obs(data, state, g)
+    got = np.asarray(_chromatic_sweeps(g, data, cfg, state, linv, mu,
+                                       jax.random.key(3)).field)
+
+    if schedule == "flat":
+        blocks = list(np.asarray(g.chrom_blocks))
+    else:
+        blocks = [row for tab in g.chrom_sites for row in np.asarray(tab)]
+    rsum = np.zeros(g.n)
+    np.add.at(rsum, np.asarray(g.locs_match),
+              np.asarray(data.y, np.float64) - np.asarray(mu, np.float64))
+    want = np_mean_field_sweep(
+        np.asarray(linv), NN, blocks, np.asarray(state.field),
+        float(state.beta_0), float(state.log_scale),
+        float(state.log_noise_variance), rsum, np.asarray(g.obs_per_loc),
+    )
+    assert not np.allclose(want, np.asarray(state.field), atol=1e-3)
+    np.testing.assert_allclose(got, want, rtol=0, atol=2e-5)
+
+
 def test_chromatic_residual_formula_against_reference_math(rng):
     """One chromatic color step must reproduce the reference's conditional
     mean formula (crossprod form, mcmc_nngp_update_Gaussian.R:264-271)."""
@@ -463,7 +498,7 @@ def test_ancillary_step_targets_exact_conditional(rng):
 
 def test_range_cap_truncates_support(rng):
     """Proposals whose natural range exceeds data.range_cap must be
-    rejected by both MH blocks (the r3 96-chain TPU NaN: chains wandering
+    rejected by both MH blocks (an earlier 96-chain run's NaN: chains wandering
     into the flat-prior improper tail at range >> domain diameter
     destabilize the f32 near-singular conditionals)."""
     from dataclasses import replace

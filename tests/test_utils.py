@@ -6,7 +6,7 @@ import os
 import numpy as np
 import pytest
 
-RDS_PATH = "/root/reference/Heavy_metals/processed_data.RDS"
+from nngp_tpu.utils.datasets import DEFAULT_RDS as RDS_PATH
 
 
 @pytest.mark.skipif(not os.path.exists(RDS_PATH), reason="reference data absent")
@@ -104,3 +104,28 @@ def test_rds_roundtrip_synthetic_types(tmp_path):
     d = read_rds(str(path))
     assert d["a"][0] == 1.5
     assert d["b"][0] == 2
+
+
+@pytest.mark.parametrize("env_set", [True, False])
+def test_compilation_cache_placement(monkeypatch, tmp_path, env_set):
+    """With JAX_COMPILATION_CACHE_DIR set, JAX's own reading of it stands
+    and no directory is set; without it the cache goes to the one fixed
+    directory inside the checkout."""
+    import jax
+
+    from nngp_tpu.utils import compile_cache
+
+    calls = []
+    monkeypatch.setattr(jax.config, "update",
+                        lambda name, val: calls.append((name, val)))
+    if env_set:
+        monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path))
+        assert compile_cache.enable_compilation_cache() == str(tmp_path)
+        assert calls == []
+    else:
+        monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+        got = compile_cache.enable_compilation_cache()
+        repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+        assert got == os.path.join(repo, ".jax_cache")
+        assert calls == [("jax_compilation_cache_dir", got)]
+        assert os.path.isdir(got)

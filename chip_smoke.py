@@ -7,10 +7,12 @@
 
 The deployment is the Heavy-metals fit of the reference's
 Heavy_metals/run_script.R:8-15 at its full size: 64,274 observations at
-~58k unique lon/lat sites, 14 location covariates, exponential_sphere,
+58,097 unique lon/lat sites, 14 location covariates, exponential_sphere,
 m = 5, 3 chains, field_thinning 0.5, classed chromatic schedule.  The data
 are the real ones when the RDS file is in the repository and otherwise the
-same-shape synthetic set; the device phase prints which.
+same-shape synthetic set (repeated sites, a spatial field with the real
+fit's covariance; nngp_tpu/utils/datasets.py); the device phase prints
+which.
 
 Phases, in order; any failure exits non-zero before the last line:
 
@@ -220,13 +222,28 @@ def parity_checks(mc, chain: int = 0) -> dict:
     linv_fn = jax.jit(vecchia_linv)
     natural = _natural_shape(cfg, state.shape)
     linv = np.asarray(linv_fn(graph, natural))
+    L64 = f64(linv)
     coords = f64(mc.locs)
     if "sphere" in covfun:
         coords = lonlat_to_xyz(coords)
     want = np_vecchia_linv(coords, NN, covfun, f64(natural))
+    ldiff = np.log(L64[:, 0]) - np.log(want[:, 0])
     out["vecchia_linv max|log diag ratio|"] = (
-        float(np.abs(np.log(linv[:, 0]) - np.log(want[:, 0])).max()),
-        LINV_LOGDIAG_TOL)
+        float(np.abs(ldiff).max()), LINV_LOGDIAG_TOL)
+
+    # -- the same, summed: sum_i log linv_i0 is the log-determinant in every
+    # MH ratio, so a per-site bias far inside the bound above adds up over
+    # n sites (the bound above holds each site's size; this one its sign).
+    # Tolerance: the f32 build's per-site errors come from independent
+    # roundings (the f32 distances, exp_acc, the Cholesky and solves) of
+    # either sign, so given their sizes |d_i| their signs are fair coins
+    # and |sum d_i| > 6 sqrt(sum d_i^2) has a chance below 2 exp(-18)
+    # (Hoeffding).  The final rsqrt, within 2 ulp and perhaps always of
+    # one sign, adds at most 2 n eps.  A bias of b per site adds n b
+    # against 6 sqrt(n) b, so 3 ulp at every site fails it.
+    out["vecchia_linv |sum log diag ratio|"] = (
+        abs(float(ldiff.sum())),
+        float(6 * np.sqrt((ldiff ** 2).sum()) + 2 * n * EPS32))
 
     # -- level-scheduled solve against the same substitution in float64.
     # Tolerance: a first-order forward error bound carried through the
@@ -240,7 +257,6 @@ def parity_checks(mc, chain: int = 0) -> dict:
     v = rng.normal(size=n).astype(np.float32)
     x = np.asarray(jax.jit(level_solve)(jnp.asarray(linv), jnp.asarray(v),
                                         graph))
-    L64 = f64(linv)
     x_ref = np_solve_L(L64, NN, f64(v))
     mask = NN >= 0
     absoff = np.abs(L64[:, 1:]) * mask[:, 1:]
@@ -252,33 +268,55 @@ def parity_checks(mc, chain: int = 0) -> dict:
     out["level_solve max|dx|/max|x|"] = (
         float(np.abs(x - x_ref).max() / scale), float(e.max() / scale))
 
-    # -- sufficient-MH log-likelihood difference against float64 with the
-    # same two factors.  Tolerance: each of the n per-site terms is formed
-    # from (m+1)-term row products: z_i is off by (m+1) eps sum_j |l_ij w_j|,
-    # so c z_i^2 by about (m+1) eps c (|z_i| + sum_j |l_ij w_j|)^2, and the
-    # log term and the differencing add a few eps more.  The compensated
-    # sum adds nothing at this order, so the worst case is the sum over
-    # sites.
+    # -- sufficient-MH log-likelihood difference against float64, from the
+    # same two f32 factors (the factor build's own error is checked above),
+    # its log-det and quadratic parts each against its own bound.  Each
+    # bound has a coherent part, summed over sites in the worst case, for
+    # an error every site shares, and a random part for independent
+    # roundings of either sign, 6 sqrt(sum of squared per-site bounds)
+    # (Hoeffding, as above); the compensated sum adds nothing at this order.
     ls_old = float(state.log_scale)
-    ls_new = ls_old + 0.05
+    ls_new = float(np.float32(ls_old + 0.05))
     linv_new = np.asarray(linv_fn(graph, natural * 1.05))
+    Ln64 = f64(linv_new)
     w = np.asarray(state.field - state.beta_0)
-    got = float(jax.jit(nngp_loglik_diff)(
+    loglik_diff = jax.jit(nngp_loglik_diff)
+    # Log-det part: with w = 0 and one log-scale the kernel returns its
+    # sum of log1p_acc((a-b)/b) alone.  Per site the subtraction is exact
+    # (Sterbenz) and the division one rounding, eps |t_i| at most and
+    # random; the log1p polynomial's ~1 ulp is counted as coherent.
+    got_ld = float(loglik_diff(
+        jnp.asarray(linv_new), jnp.float32(ls_old), jnp.asarray(linv),
+        jnp.float32(ls_old), jnp.zeros_like(jnp.asarray(w)), graph))
+    t = np.log(Ln64[:, 0]) - np.log(L64[:, 0])
+    want_ld = float(t.sum())
+    out["nngp_loglik_diff log-det part |d|"] = (
+        abs(got_ld - want_ld),
+        float(EPS32 * (np.abs(t).sum() + 6 * np.sqrt((t * t).sum())
+                       + abs(want_ld))))
+    # Quadratic part: the full difference less the log-det part.  Per site
+    # z_i is an (m+1)-term product, off by (m+1) eps s_i with s_i =
+    # sum_j |l_ij w_j|, so c z_i^2 / 2 by (m+4) eps c (|z_i| + s_i)^2 / 2
+    # at most, with its own roundings; c = exp_acc(-log_scale) is ~1 ulp
+    # off for every site at once; the log-scale term and the two f32
+    # results add a rounding each.
+    got_q = float(loglik_diff(
         jnp.asarray(linv_new), jnp.float32(ls_new), jnp.asarray(linv),
-        jnp.float32(ls_old), jnp.asarray(w), graph))
+        jnp.float32(ls_old), jnp.asarray(w), graph)) - got_ld
     Ln, Lo = np_sparse_L(linv_new, NN), np_sparse_L(linv, NN)
     zn, zo = Ln @ f64(w), Lo @ f64(w)
     cn, co = np.exp(-ls_new), np.exp(-ls_old)
-    logd = np.log(f64(linv_new)[:, 0]) - np.log(L64[:, 0])
-    want = (logd.sum() - 0.5 * (zn @ zn * cn - zo @ zo * co)
-            - 0.5 * n * (ls_new - ls_old))
+    const = 0.5 * n * (ls_new - ls_old)
+    want_q = -0.5 * (zn @ zn * cn - zo @ zo * co) - const
     wabs = np.abs(f64(w))
-    mag = (np.abs(logd)
-           + cn * (np.abs(zn) + abs(Ln) @ wabs) ** 2
-           + co * (np.abs(zo) + abs(Lo) @ wabs) ** 2)
-    out["nngp_loglik_diff |d|"] = (
-        abs(got - want),
-        float((m1 + 4) * EPS32 * (mag.sum() + n * abs(ls_new - ls_old))))
+    q_site = 0.5 * (m1 + 3) * EPS32 * (
+        cn * (np.abs(zn) + abs(Ln) @ wabs) ** 2
+        + co * (np.abs(zo) + abs(Lo) @ wabs) ** 2)
+    out["nngp_loglik_diff quadratic part |d|"] = (
+        abs(got_q - want_q),
+        float(EPS32 * (0.5 * (cn * (zn @ zn) + co * (zo @ zo)) + abs(const)
+                       + abs(want_q + want_ld) + abs(want_ld))
+              + 6 * np.sqrt((q_site ** 2).sum())))
 
     # -- fixed-effect mean mu = beta_0 + X beta.  Tolerance: a (p+1)-term
     # dot in float32, (p+1) eps times the sum of |terms|; a TF32 product

@@ -8,7 +8,9 @@
 // implementations are noticeably slow at ~10^5 sites, so they get native
 // fast paths here (loaded via ctypes, with NumPy fallbacks).
 //
-// Build: make -C native   (g++ -O3 -march=native -fopenmp -shared -fPIC)
+// Built on first use by nngp_tpu/utils/native.py:
+//   g++ -O3 -fPIC -shared -std=c++17 [-fopenmp] -o libnngp_native.so nngp_native.cpp
+// with -fopenmp only when the toolchain compiles and links an OpenMP probe.
 
 #include <cstdint>
 #include <cmath>

@@ -1,10 +1,9 @@
 """ctypes loader for the native preprocessing library (native/).
 
 Builds native/libnngp_native.so from native/nngp_native.cpp on first use
-(``make``, else the C++ compiler directly, with OpenMP when it is
-available); falls back to the NumPy implementations when no toolchain
-builds it.  The native
-fast paths cover the O(n^2) exact maxmin ordering and the sequential greedy
+with one C++ compiler command, adding ``-fopenmp`` when the toolchain
+compiles and links an OpenMP probe; falls back to the NumPy implementations
+when no toolchain builds it.  The native fast paths cover the O(n^2) exact maxmin ordering and the sequential greedy
 coloring (reference equivalents: GpGp::order_maxmin C++ and the R loop in
 Scripts/Coloring.R).
 """
@@ -55,23 +54,36 @@ def _load():
     return _lib
 
 
+_OPENMP_PROBE = b"#include <omp.h>\nint main() { return omp_get_max_threads() < 1; }\n"
+
+
+def _openmp_flags(cxx: str) -> list[str]:
+    """["-fopenmp"] when ``cxx`` compiles and links an OpenMP program."""
+    try:
+        subprocess.run([cxx, "-fopenmp", "-x", "c++", "-", "-o", os.devnull],
+                       input=_OPENMP_PROBE, check=True, capture_output=True,
+                       timeout=60)
+    except (OSError, subprocess.SubprocessError):
+        return []
+    return ["-fopenmp"]
+
+
 def _build() -> bool:
     """Compile the library; True when it now exists."""
     cxx = os.environ.get("CXX") or shutil.which("g++") or shutil.which("c++")
-    src = os.path.join(_NATIVE_DIR, "nngp_native.cpp")
-    cmds = [["make", "-C", _NATIVE_DIR, "-s"]] if shutil.which("make") else []
-    if cxx:
-        base = [cxx, "-O3", "-fPIC", "-shared", "-std=c++17"]
-        cmds += [base + ["-fopenmp", "-o", _LIB_PATH, src],
-                 base + ["-o", _LIB_PATH, src]]
-    for cmd in cmds:
-        try:
-            subprocess.run(cmd, check=True, capture_output=True, timeout=120)
-        except (OSError, subprocess.SubprocessError):
-            continue
-        if os.path.exists(_LIB_PATH):
-            return True
-    return False
+    if not cxx:
+        return False
+    # Concurrent first uses (test workers) each write their own file and
+    # rename it into place, so no process loads a half-written library.
+    tmp = f"{_LIB_PATH}.{os.getpid()}"
+    cmd = [cxx, "-O3", "-fPIC", "-shared", "-std=c++17", *_openmp_flags(cxx),
+           "-o", tmp, os.path.join(_NATIVE_DIR, "nngp_native.cpp")]
+    try:
+        subprocess.run(cmd, check=True, capture_output=True, timeout=120)
+        os.replace(tmp, _LIB_PATH)
+    except (OSError, subprocess.SubprocessError):
+        return False
+    return True
 
 
 def maxmin_order_native(x: np.ndarray):

@@ -36,11 +36,11 @@ def test_chip_smoke_parity_helpers_small_n():
     import nngp_tpu
     from nngp_tpu.utils.datasets import synthetic_heavy_metals
 
-    locs, y, X = synthetic_heavy_metals(n=1500, p=3, seed=4)
+    locs, y, X = synthetic_heavy_metals(n=1500, n_sites=1350, p=3, seed=4)
     mc = nngp_tpu.initialize(locs, y, X_locs=X, m=5,
                              stationary_covfun="exponential_sphere",
                              n_chains=2, seed=2)
     checks = _chip_smoke().parity_checks(mc, chain=1)
-    assert len(checks) == 7
+    assert len(checks) == 9
     for name, (err, tol) in checks.items():
         assert np.isfinite(err) and err <= tol, (name, err, tol)

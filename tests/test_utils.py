@@ -37,6 +37,20 @@ def test_load_heavy_metals_or_synthetic():
         assert len(np.asarray(v)) == len(y)
 
 
+def test_synthetic_heavy_metals_repeats_sites():
+    from nngp_tpu.utils.datasets import synthetic_heavy_metals
+
+    locs, y, X = synthetic_heavy_metals(n=3000, n_sites=2700, p=4, seed=1)
+    uniq, first, inv = np.unique(locs, axis=0, return_index=True,
+                                 return_inverse=True)
+    assert len(y) == 3000 and len(uniq) == 2700 and np.isfinite(y).all()
+    inv = inv.ravel()
+    assert np.bincount(inv).max() > 1
+    # location covariates take one value per site
+    for v in X.values():
+        assert np.array_equal(v, v[first][inv])
+
+
 def test_native_matches_numpy(rng):
     from nngp_tpu.utils.native import greedy_coloring_native, maxmin_order_native
     from nngp_tpu.preprocess.ordering import order_maxmin
